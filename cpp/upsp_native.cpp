@@ -1,6 +1,6 @@
-// upsp_native: host-side native kernels for the TPU uPSP engine.
+// upsp_native: host-side native kernels for the uPSP engine.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas); this library owns the
+// The accelerator owns the compute path (JAX/XLA); this library owns the
 // host-runtime hot spots around it, mirroring the roles the reference
 // implements natively (SURVEY.md N2/N5/N19/N20 — studied, not copied):
 //   - packed 10/12-bit pixel unpacking (video ingest feeding device buffers)

@@ -1,13 +1,12 @@
 """Parity of the bfloat16 compute path against the float32 pipeline.
 
 ``compute_dtype="bfloat16"`` keeps the inter-stage IMAGES in bf16 (halving
-every image HBM pass on TPU and removing the f32<->bf16 retiling copies
-around the warp matmuls) while all reductions, warp parameters, and solves
-stay f32.  These tests bound the quantization it introduces on the production
+every image pass in device memory) while all reductions, warp parameters,
+and solves stay f32.  These tests bound the quantization it introduces on the production
 chunk program: warps within a few hundredths of a pixel and node intensities
 within a small fraction of the ~sqrt(I) shot noise of real 12-bit data
-(the same argument that justified the accepted bf16 warp matmuls —
-ops/warp.py precision note).
+(the same argument as the reduced-precision warp matmuls — ops/warp.py
+precision note).
 
 The f32 path remains the reference-parity mode; bf16 is opt-in
 (run_datapoint(compute_dtype=...), upsp-process --compute-dtype bfloat16).

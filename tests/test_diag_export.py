@@ -200,3 +200,16 @@ class TestRegistrationTelemetryAnalysis:
         assert meta["conv_semantics"] == "drho"
         assert meta["ecc_unroll_iters"] == 2
         assert meta["columns"][1] == "drho"
+        assert "device_peak_bytes_in_use" not in meta
+
+    def test_meta_sidecar_device_peaks(self, tmp_path):
+        from upsp_tpu.pipeline.diagnostics import (
+            read_registration_meta,
+            write_registration_meta,
+        )
+
+        peaks = [3 * 2**30, 2**30, 2**30 + 7, 2**30]
+        write_registration_meta(str(tmp_path), "drho",
+                                device_peak_bytes=peaks)
+        meta = read_registration_meta(str(tmp_path / "registration"))
+        assert meta["device_peak_bytes_in_use"] == peaks

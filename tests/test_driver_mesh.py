@@ -1,4 +1,4 @@
-"""Mesh-sharded production driver + round-2 parity tail.
+"""Mesh-sharded production driver + deck parity tail.
 
 Covers the integration the reference gets from MPI (psp_process.cpp:1520-1529
 apportion, :707-771 global transpose — studied, not copied): run_datapoint
@@ -8,40 +8,19 @@ the input-deck tail (start_frame, active_comps) plus the steady_state /
 model_temp output files must demonstrably change behavior.
 """
 
-import json
-
 import numpy as np
 import pytest
 
-from upsp_tpu.io.plot3d import StructGrid, write_p3d_grid
+from upsp_tpu.io.plot3d import StructGrid
 from upsp_tpu.parallel.mesh import make_mesh
 from upsp_tpu.pipeline.config import CameraInputs, ProcessingConfig
 from upsp_tpu.pipeline.run import run_datapoint
-from upsp_tpu.pipeline.synthetic import make_plate_grid
+from upsp_tpu.pipeline.synthetic import make_plate_grid, write_inputs
 
 
 def _write_inputs(tmp_path, grid=None):
-    grid_path = str(tmp_path / "plate.grid")
-    write_p3d_grid(grid_path, grid if grid is not None else make_plate_grid(21, 17))
-    cam_path = str(tmp_path / "cam.json")
-    with open(cam_path, "w") as fh:
-        json.dump(
-            {
-                "uPSP_cameraMatrix": [[200.0, 0, 0], [0, 200.0, 0], [0, 0, 1]],
-                "distCoeffs": [[0, 0, 0, 0, 0]],
-                "rmat": [[1, 0, 0], [0, -1, 0], [0, 0, -1]],
-                "tvec": [-5.0, 4.0, 20.0],
-            },
-            fh,
-        )
-    wtd_path = str(tmp_path / "t.wtd")
-    with open(wtd_path, "w") as fh:
-        fh.write("RUN 1 1\n#\tMACH\tALPHA\tBETA\tPHI\tQ\tPS\tTTF\tSTRUTZ\n")
-        fh.write("0.80\t0.00\t0.00\t0.00\t144.00\t500.00\t80.00\t0.00\n")
-    paint_path = str(tmp_path / "paint.cal")
-    with open(paint_path, "w") as fh:
-        fh.write("a = 1.0\nb = 0.0\nc = 0\nd = 0\ne = 0\nf = 0\n")
-    return grid_path, cam_path, wtd_path, paint_path
+    p = write_inputs(str(tmp_path), grid=grid)
+    return p["grid"], p["cameras"][0], p["wtd"], p["paint"]
 
 
 def _config(tmp_path, out="out", registration="none", grid=None, **kw):
@@ -129,6 +108,48 @@ class TestMeshDriver:
         np.testing.assert_allclose(
             out2.intensity[v], out1.intensity[v], rtol=1e-4, atol=0.05
         )
+
+
+class TestMeshDriverVideo:
+    def test_packed_video_four_devices_match_one(self, tmp_path):
+        """The seeded packed-video deck over a 4-device mesh == one device.
+
+        The CPU witness for ``chip_smoke.py --four-gpus``: 4 cameras,
+        polynomial patching, fft ECC init, two chunks of 16 frames, in core
+        and streaming.  Each device runs the one-device per-frame program
+        on its frames, so intensities match bitwise; delta-Cp may differ
+        only by phase 2's summation order over node blocks.
+        """
+        import os
+
+        import jax
+
+        from upsp_tpu.io.flatfile import read_flat
+        from upsp_tpu.pipeline.config import read_input_deck
+        from upsp_tpu.pipeline.run import run_datapoint_streaming
+        from upsp_tpu.pipeline.synthetic import write_datapoint
+
+        F = 32
+        cfg = read_input_deck(write_datapoint(
+            str(tmp_path), F, (120, 180), (48, 48), n_cameras=4, n_targets=8,
+        ))
+        mesh = make_mesh(jax.devices()[:4])
+        one = run_datapoint(cfg, frames_per_chunk=16, write_outputs=False)
+        four = run_datapoint(cfg, frames_per_chunk=16, write_outputs=False,
+                             mesh=mesh)
+        run_datapoint_streaming(cfg, frames_per_chunk=16, mesh=mesh,
+                                write_hdf5=False)
+        streamed = read_flat(os.path.join(cfg.out_dir, "intensity"))
+        assert np.isfinite(one.intensity).mean() > 0.5
+        np.testing.assert_array_equal(four.intensity, one.intensity)
+        np.testing.assert_array_equal(streamed.reshape(F, -1), one.intensity)
+        p1 = np.asarray(one.phase2.pressure_transpose)
+        p_streamed = read_flat(os.path.join(cfg.out_dir, "pressure_transpose"))
+        # paint gain 1 and qbar 144: delta-Cp is in units of the intensity
+        # ratio, whose f32 rounding is ~1e-7
+        for p in (np.asarray(four.phase2.pressure_transpose),
+                  p_streamed.reshape(p1.shape)):
+            np.testing.assert_allclose(p, p1, rtol=0, atol=1e-5)
 
 
 class TestWarmStart:

@@ -174,7 +174,7 @@ class TestFixtureEndToEnd:
 
     def test_bf16_compute_dtype_vv_parity(self, fixture_run):
         """bfloat16 inter-stage images on REAL imagery: the opt-in
-        compute_dtype="bfloat16" pipeline (halves image HBM traffic on TPU)
+        compute_dtype="bfloat16" pipeline (halves image traffic in device memory)
         must stay inside the same vv envelope as the f32 production mode —
         measured against the converged identity-start f32 ECC oracle, the
         same yardstick as the sub-pixel envelope test above.

@@ -89,3 +89,71 @@ class TestHistogramThreshold:
         counts = np.array([1, 5, 30, 6, 3, 1, 4, 20, 40, 10, 2])
         idx = first_min_threshold(counts, 1)
         assert 4 <= idx <= 6
+
+
+def _hot_pixel_reference(img, thresh=4064, min_change=512, max_hot=5):
+    """Loop-form float64 reference of fix_hot_pixels (4-neighbor median)."""
+    x = np.asarray(img, np.float64)
+    H, W = x.shape
+    hot = np.argwhere(x >= thresh)
+    out = x.copy()
+    if len(hot) > max_hot:
+        return out
+    for y, xx in hot:
+        nb = [x[y + dy, xx + dx] for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1))
+              if 0 <= y + dy < H and 0 <= xx + dx < W]
+        med = sorted(nb)[len(nb) // 2]
+        if x[y, xx] - med > min_change:
+            out[y, xx] = med
+    return out
+
+
+class TestFixHotPixelsReference:
+    @pytest.mark.parametrize("n_hot,dtype", [
+        (0, np.float32), (1, np.float32), (3, np.uint16), (5, np.float32),
+        (6, np.float32), (4, np.uint16),
+    ])
+    def test_matches_loop_reference(self, n_hot, dtype):
+        rng = np.random.default_rng(n_hot)
+        img = rng.normal(2000, 200, (24, 32))
+        pos = [(0, 0), (0, 31), (23, 5), (11, 0), (12, 17), (7, 9)][:n_hot]
+        for y, x in pos:
+            img[y, x] = 4090.0
+        img = img.astype(dtype)
+        got = np.asarray(fix_hot_pixels(jnp.asarray(img)), np.float64)
+        np.testing.assert_array_equal(got, _hot_pixel_reference(img))
+
+
+def _blur_reference(img, taps):
+    """Separable float64 convolution with reflect-101 borders."""
+    x = np.asarray(img, np.float64)
+    r = len(taps) // 2
+    for axis in (0, 1):
+        p = np.pad(x, [(r, r) if a == axis else (0, 0) for a in (0, 1)],
+                   mode="reflect")
+        n = x.shape[axis]
+        x = sum(
+            t * np.take(p, np.arange(k, k + n), axis=axis)
+            for k, t in enumerate(np.asarray(taps, np.float64))
+        )
+    return x
+
+
+class TestBlursFloat64:
+    @pytest.mark.parametrize("kind,k,shape", [
+        ("gaussian", 3, (40, 56)), ("gaussian", 5, (40, 56)),
+        ("gaussian", 7, (40, 56)), ("gaussian", 5, (33, 47)),
+        ("box", 3, (40, 56)), ("box", 5, (33, 47)),
+    ])
+    def test_matches_float64(self, rng, kind, k, shape):
+        from upsp_tpu.ops.image import gaussian_kernel_1d
+
+        img = rng.uniform(0, 4095, shape).astype(np.float32)
+        if kind == "gaussian":
+            got = np.asarray(gaussian_blur(jnp.asarray(img), k))
+            taps = gaussian_kernel_1d(k)
+        else:
+            got = np.asarray(box_blur(jnp.asarray(img), k))
+            taps = np.full(k, 1.0 / k)
+        np.testing.assert_allclose(got, _blur_reference(img, taps),
+                                   rtol=1e-5, atol=2e-3)

@@ -129,6 +129,95 @@ class TestPatchOperator:
         )
         assert build_patch_operator([c], (16, 16)) is None
 
+    def test_matmul_runs_at_highest_precision(self, rng):
+        """The fill matmul asks for full f32 whatever the default, so a
+        GPU's TF32 passes never round M or the boundary values."""
+        import jax
+
+        frame, dots = self._frame_with_dots(rng)
+        clusters = build_patch_clusters(
+            dots, np.array([6.0, 6.0]), frame.shape, bound_pts=3, buffer=2
+        )
+        op = build_patch_operator(clusters, frame.shape)
+        hlo = jax.jit(apply_patches).lower(jnp.asarray(frame), op).as_text()
+        assert "precision = [HIGHEST, HIGHEST]" in hlo
+
+    def test_fill_gain(self, rng):
+        """~3 for a whole boundary ring; a ring cut to one side
+        extrapolates, and its gain grows by orders of magnitude."""
+        from upsp_tpu.ops.patching import PatchCluster, fill_gain
+
+        frame, dots = self._frame_with_dots(rng)
+        (whole,) = build_patch_clusters(
+            dots[:1], np.array([6.0]), frame.shape, bound_pts=3, buffer=2
+        )
+        gain = fill_gain(build_patch_operator([whole], frame.shape))
+        assert 1.0 < gain < 10.0
+        left = whole.bounds_xy[:, 0] < dots[0][0] - 2
+        cut = PatchCluster(bounds_xy=whole.bounds_xy[left],
+                           internal_xy=whole.internal_xy)
+        assert fill_gain(build_patch_operator([cut], frame.shape)) > 10 * gain
+        assert fill_gain(None) == 0.0
+
+
+class TestSyntheticTargets:
+    def test_paint_targets_darkens_inside_the_box(self):
+        from upsp_tpu.pipeline.synthetic import paint_targets
+
+        img = np.full((40, 50), 3000.0, np.float32)
+        out = paint_targets(img, np.array([[20.3, 15.6]]), 8.0)
+        assert out[16, 20] == pytest.approx(300.0)  # the dot's centre
+        changed = np.argwhere(out != img)
+        # inside the patch box floor/ceil(uv -+ d/2) that phase 0 sizes
+        assert changed[:, 1].min() >= 16 and changed[:, 1].max() <= 25
+        assert changed[:, 0].min() >= 11 and changed[:, 0].max() <= 20
+        assert np.array_equal(img, np.full((40, 50), 3000.0))  # a copy
+
+    def test_datapoint_rings_stay_whole(self, tmp_path):
+        """The deck's dots give the threshold a dark mode to find, so every
+        cluster keeps its boundary ring and its fill gain stays ~3."""
+        from upsp_tpu.ops.patching import fill_gain
+        from upsp_tpu.pipeline.config import read_input_deck
+        from upsp_tpu.pipeline.phase0 import FILL_GAIN_WARN, run_phase0
+        from upsp_tpu.pipeline.run import open_videos
+        from upsp_tpu.pipeline.synthetic import write_datapoint
+
+        cfg = read_input_deck(write_datapoint(
+            str(tmp_path), 2, (480, 720), (32, 32), n_cameras=2, n_targets=6,
+        ))
+        readers, _, _ = open_videos(cfg)
+        first = [r.read_frame(0) for r in readers]
+        for r in readers:
+            r.close()
+        # the dots are in the video: a dot's centre is a tenth of the paint
+        for f in first:
+            assert f.min() < 0.2 * np.median(f)
+        state = run_phase0(cfg, first, [12, 12])
+        for op in state.patch_ops:
+            assert op is not None and op.n_clusters == 6
+            assert fill_gain(op) < FILL_GAIN_WARN
+
+    def test_phase0_warns_of_a_high_fill_gain(self, tmp_path, monkeypatch,
+                                              caplog):
+        import logging
+
+        from upsp_tpu.pipeline import phase0
+        from upsp_tpu.pipeline.config import read_input_deck
+        from upsp_tpu.pipeline.run import open_videos
+        from upsp_tpu.pipeline.synthetic import write_datapoint
+
+        cfg = read_input_deck(write_datapoint(
+            str(tmp_path), 2, (48, 64), (21, 17), n_cameras=1, n_targets=3,
+        ))
+        readers, _, _ = open_videos(cfg)
+        first = [readers[0].read_frame(0)]
+        readers[0].close()
+        monkeypatch.setattr(phase0, "FILL_GAIN_WARN", 1.0)
+        with caplog.at_level(logging.WARNING, logger="upsp_tpu"):
+            phase0.run_phase0(cfg, first, [12])
+        assert any("amplifies boundary-pixel error" in r.getMessage()
+                   for r in caplog.records)
+
 
 class TestDetrend:
     def test_matches_numpy_lstsq(self, rng):

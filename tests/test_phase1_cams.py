@@ -1,10 +1,9 @@
 """Camera-vmapped phase-1 path vs the per-camera Python loop.
 
 ``vmap_cameras`` (opt-in) replaces the per-camera loop with a camera-axis
-vmap so the warp/tent matmuls batch across cameras.  Measured SLOWER at the
-production 4cam x 2MP config (73 vs 90 fps/chip — see make_chunk_processor),
-so the loop is the default; the vmapped path remains a tested capability for
-dispatch-bound small-image configs.  vmap of the same program must be
+vmap so the warp/tent matmuls batch across cameras.  The loop is the
+default; the vmapped path remains a tested capability (its speed on the GPU
+is not measured yet).  vmap of the same program must be
 numerically equivalent op-for-op; these tests lock that on the multi-camera
 synthetic scene for the batchable modes (fft-init unrolled ECC and
 no-registration).
@@ -65,8 +64,7 @@ class TestCameraVmapEquivalence:
 
     def test_default_is_loop_path(self, scene):
         """vmap_cameras is opt-in: the default equals the loop path
-        bit-for-bit (measured slower at the production 2 MP config, see
-        make_chunk_processor docstring)."""
+        bit-for-bit."""
         state, frames = scene
         sol_d, _ = _run(state, frames, warm_start="fft", frame_batch=2)
         sol_l, _ = _run(

@@ -241,7 +241,7 @@ class TestPhase2:
 
 class TestStatisticsAccumulation:
     def test_f32_tree_reduction_bound_50k_frames(self):
-        """Measured bound for the TPU (no-f64) path of phase1_statistics:
+        """Measured bound for the x64-off (f32) path of phase1_statistics:
         XLA's tree-shaped f32 reduction stays within 5e-7 relative of the
         f64 oracle at the reference's 50k-frame campaign scale
         (psp_process.cpp:1722-1730 uses f64 partials for the same reason).

@@ -171,3 +171,56 @@ class TestTelemetry:
         # intensity identical to the non-telemetry path
         base = make_frame_processor(state)(jnp.asarray(frames[1]))
         np.testing.assert_array_equal(np.asarray(sol), np.asarray(base))
+
+
+def _gn_statistics_f64(iw, tmpl, warp, mask_warp):
+    """Float64 numpy form of registration.gn_statistics."""
+    iw = np.asarray(iw, np.float64)
+    tmpl = np.asarray(tmpl, np.float64)
+    a = np.asarray(warp, np.float64)
+    mw = np.asarray(mask_warp, np.float64)
+    H, W = iw.shape
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+    gix = np.zeros_like(iw)
+    giy = np.zeros_like(iw)
+    gix[:, 1:-1] = 0.5 * (iw[:, 2:] - iw[:, :-2])
+    giy[1:-1, :] = 0.5 * (iw[2:, :] - iw[:-2, :])
+    det = a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
+    gx = (a[1, 1] * gix - a[1, 0] * giy) / det
+    gy = (-a[0, 1] * gix + a[0, 0] * giy) / det
+    y_sep = mw[1, 1] * ys[:, 0] + mw[1, 2] + mw[1, 0] * (W - 1) / 2
+    x_sep = mw[0, 0] * xs[0] + mw[0, 2] + mw[0, 1] * (H - 1) / 2
+    m = np.outer((y_sep >= 0) & (y_sep <= H - 1), (x_sep >= 0) & (x_sep <= W - 1))
+    m = m.astype(np.float64)
+    area = max(m.sum(), 1.0)
+    gx, gy = gx * m, gy * m
+    t_zm = (tmpl - (tmpl * m).sum() / area) * m
+    i_zm = (iw - (iw * m).sum() / area) * m
+    G = np.stack([gx * xs, gy * xs, gx * ys, gy * ys, gx, gy]).reshape(6, -1)
+    return (G @ G.T, G @ i_zm.ravel(), G @ t_zm.ravel(), (i_zm**2).sum(),
+            (t_zm * i_zm).sum(), np.sqrt((t_zm**2).sum()))
+
+
+class TestGNStatistics:
+    @pytest.mark.parametrize("warp,shift", [
+        ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], (0, 0)),
+        ([[1.0, 0.0, 0.6], [0.0, 1.0, -0.8]], (0, 0)),
+        ([[1.0003, -2e-4, 0.4], [1e-4, 0.9997, -0.3]], (0, 0)),
+        ([[1.0, 0.0, 0.2], [0.0, 1.0, 0.1]], (4, -6)),
+    ])
+    def test_matches_float64(self, rng, warp, shift):
+        from upsp_tpu.ops.registration import gn_statistics
+        from upsp_tpu.ops.warp import warp_affine_mxu
+
+        tmpl = make_test_image(rng)
+        w = np.asarray(warp, np.float32)
+        iw = np.asarray(warp_affine_mxu(jnp.asarray(make_test_image(rng)),
+                                        jnp.asarray(w)))
+        mw = w.copy()
+        mw[:, 2] += shift
+        got = gn_statistics(jnp.asarray(iw), jnp.asarray(tmpl),
+                            jnp.asarray(w), jnp.asarray(mw))
+        want = _gn_statistics_f64(iw, tmpl, w, mw)
+        for g, e in zip(got, want):
+            np.testing.assert_allclose(np.asarray(g, np.float64), e,
+                                       rtol=2e-4, atol=1e-6 * np.abs(e).max())

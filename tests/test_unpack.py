@@ -1,4 +1,4 @@
-"""Device unpack kernel vs host unpacker (interpret mode on CPU)."""
+"""On-device packed-pixel unpack (ops/unpack.py) vs the host unpackers."""
 
 import numpy as np
 import pytest
@@ -6,11 +6,7 @@ import pytest
 import jax.numpy as jnp
 
 from upsp_tpu.io.video.util import pack_12bpp, unpack_12bpp
-from upsp_tpu.ops.pallas_unpack import (
-    unpack_12bpp_device,
-    unpack_12bpp_jnp,
-    unpack_frames_12bpp,
-)
+from upsp_tpu.ops.unpack import unpack_12bpp_jnp
 
 
 class TestDeviceUnpack:
@@ -19,26 +15,6 @@ class TestDeviceUnpack:
         buf = pack_12bpp(pix)
         out = np.array(unpack_12bpp_jnp(jnp.asarray(buf)))
         np.testing.assert_array_equal(out, unpack_12bpp(buf))
-
-    def test_pallas_interpret_matches(self, rng):
-        pix = rng.integers(0, 4096, 2 * 32768).astype(np.uint16)
-        buf = pack_12bpp(pix)
-        out = np.array(unpack_12bpp_device(jnp.asarray(buf), interpret=True))
-        np.testing.assert_array_equal(out, unpack_12bpp(buf))
-
-    def test_non_multiple_block(self, rng):
-        # G not a multiple of the kernel block: padding path
-        pix = rng.integers(0, 4096, 2 * 1000).astype(np.uint16)
-        buf = pack_12bpp(pix)
-        out = np.array(unpack_12bpp_device(jnp.asarray(buf), interpret=True))
-        np.testing.assert_array_equal(out, pix)
-
-    def test_frames_reshape(self, rng):
-        H, W, F = 8, 16, 3
-        pix = rng.integers(0, 4096, F * H * W).astype(np.uint16)
-        buf = pack_12bpp(pix)
-        frames = np.array(unpack_frames_12bpp(jnp.asarray(buf), H, W, F))
-        np.testing.assert_array_equal(frames, pix.reshape(F, H, W))
 
 
 class TestPackedChunkProcessor:
@@ -66,7 +42,7 @@ class TestPackedChunkProcessor:
                 for f in range(q.shape[0])
             ]
         )  # (F, C, B) uint8
-        fn = make_packed_chunk_processor(state, use_pallas=False)
+        fn = make_packed_chunk_processor(state)
         got = np.asarray(fn(jnp.asarray(packed)))
         want = np.asarray(process_frames(state, jnp.asarray(q)))
         np.testing.assert_array_equal(got, want)
@@ -77,25 +53,12 @@ class TestUnpack10:
         import jax.numpy as jnp
 
         from upsp_tpu.io.video.util import pack_10bpp, unpack_10bpp
-        from upsp_tpu.ops.pallas_unpack import unpack_10bpp_jnp
+        from upsp_tpu.ops.unpack import unpack_10bpp_jnp
 
         pix = rng.integers(0, 1024, size=4 * 5000).astype(np.uint16)
         buf = pack_10bpp(pix)
         got = np.asarray(unpack_10bpp_jnp(jnp.asarray(buf)))
         np.testing.assert_array_equal(got, unpack_10bpp(buf))
-
-    def test_kernel_interpret_matches_jnp(self, rng):
-        import jax.numpy as jnp
-
-        from upsp_tpu.ops.pallas_unpack import (
-            unpack_10bpp_device,
-            unpack_10bpp_jnp,
-        )
-
-        buf = rng.integers(0, 256, size=5 * 40000, dtype=np.uint8)
-        got = np.asarray(unpack_10bpp_device(jnp.asarray(buf), interpret=True))
-        want = np.asarray(unpack_10bpp_jnp(jnp.asarray(buf)))
-        np.testing.assert_array_equal(got, want)
 
     def test_packed_processor_10bit_with_lut(self):
         """10-bit packed chunk + companding LUT == host-decoded path."""
@@ -123,10 +86,60 @@ class TestUnpack10:
             ]
         )
         fn = make_packed_chunk_processor(
-            state, use_pallas=False, packed_bits=10, lut=LUT_10_TO_12
+            state, packed_bits=10, lut=LUT_10_TO_12
         )
         got = np.asarray(fn(jnp.asarray(packed)))
         want = np.asarray(
             process_frames(state, jnp.asarray(LUT_10_TO_12[q10].astype(np.uint16)))
         )
         np.testing.assert_array_equal(got, want)
+
+
+class TestMakeUnpacker:
+    """phase1._make_unpacker: (F, C, B) packed bytes -> (F, C, H, W)."""
+
+    @pytest.mark.parametrize(
+        "bits,shape",
+        [(12, (2, 1, 4, 8)), (12, (3, 2, 6, 10)), (10, (2, 1, 4, 8)),
+         (10, (1, 3, 8, 10))],
+    )
+    def test_shapes_match_host(self, rng, bits, shape):
+        from upsp_tpu.io.video.util import pack_10bpp, unpack_10bpp
+        from upsp_tpu.pipeline.phase1 import _make_unpacker
+
+        F, C, H, W = shape
+        pack, unpack = (
+            (pack_12bpp, unpack_12bpp) if bits == 12
+            else (pack_10bpp, unpack_10bpp)
+        )
+        pix = rng.integers(0, 2**bits, (F, C, H * W)).astype(np.uint16)
+        packed = np.stack(
+            [np.stack([pack(pix[f, c]) for c in range(C)]) for f in range(F)]
+        )
+        got = np.asarray(_make_unpacker(bits, None, (H, W))(jnp.asarray(packed)))
+        assert got.shape == (F, C, H, W) and got.dtype == np.uint16
+        want = np.stack(
+            [np.stack([unpack(packed[f, c]) for c in range(C)]) for f in range(F)]
+        ).reshape(F, C, H, W)
+        np.testing.assert_array_equal(got, want)
+
+    def test_lut_applied_on_device(self, rng):
+        from upsp_tpu.io.video.cine import LUT_10_TO_12
+        from upsp_tpu.io.video.util import pack_10bpp
+        from upsp_tpu.pipeline.phase1 import _make_unpacker
+
+        H, W = 4, 8
+        pix = rng.integers(0, 1024, (2, 1, H * W)).astype(np.uint16)
+        packed = np.stack([pack_10bpp(pix[f, 0])[None] for f in range(2)])
+        got = np.asarray(
+            _make_unpacker(10, LUT_10_TO_12, (H, W))(jnp.asarray(packed))
+        )
+        np.testing.assert_array_equal(
+            got, LUT_10_TO_12[pix].reshape(2, 1, H, W)
+        )
+
+    def test_rejects_other_bit_depths(self):
+        from upsp_tpu.pipeline.phase1 import _make_unpacker
+
+        with pytest.raises(ValueError, match="packed_bits"):
+            _make_unpacker(8, None, (4, 8))

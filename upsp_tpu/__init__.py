@@ -1,16 +1,16 @@
-"""upsp_tpu — a TPU-native unsteady pressure-sensitive-paint (uPSP) engine.
+"""upsp_tpu — a JAX unsteady pressure-sensitive-paint (uPSP) engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of NASA's
-``upsp-processing`` pipeline (reference: /root/reference).  High-speed video of a
+A from-scratch JAX/XLA re-design of the capabilities of NASA's
+``upsp-processing`` pipeline.  High-speed video of a
 painted wind-tunnel model goes in; surface-pressure (delta-Cp) time histories on
 a 3D model grid come out.
 
-Layer map (TPU-first, not a port):
+Layer map (a re-design, not a port):
 
 - :mod:`upsp_tpu.io`        — grid / targets / video / config file formats (host side)
 - :mod:`upsp_tpu.geometry`  — triangle soup, normals, BVH build (host), k-d queries
 - :mod:`upsp_tpu.camera`    — pinhole+distortion model, pose solves, bundle adjustment
-- :mod:`upsp_tpu.ops`       — jitted/Pallas kernels: raycast, registration (ECC),
+- :mod:`upsp_tpu.ops`       — jitted device ops: raycast, registration (ECC),
   patching, projection, detrend, detection, sub-pixel localization
 - :mod:`upsp_tpu.pipeline`  — phase0/phase1/phase2 orchestration (the psp_process
   equivalent), fused per-frame XLA program

@@ -1,7 +1,7 @@
 """Pose estimation: robust PnP as batched Gauss-Newton + vectorized RANSAC.
 
 Replaces ``cv2.solvePnPRansac(useExtrinsicGuess=True)``
-(external_calibrate.py:1140 — studied, not copied) with a TPU-shaped design:
+(external_calibrate.py:1140 — studied, not copied) with a batched design:
 
 - :func:`refine_pose` — fixed-iteration Levenberg–Marquardt on the 6-DOF
   reprojection residual, Jacobians via ``jax.jacfwd`` of the camera model.

@@ -1,6 +1,6 @@
 """Unified surface-model geometry: triangle soup, normals, overlap handling.
 
-The TPU engine flattens both grid families of the reference into one
+This engine flattens both grid families of the reference into one
 array-of-structs-free representation:
 
 - vertices   (N, 3) float32

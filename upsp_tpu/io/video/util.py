@@ -3,9 +3,8 @@
 10-bit and 12-bit pixels are packed MSBit-first (Vision Research / Photron
 conventions; behavior parity with python/upsp/video/util.py:6-51 and
 cpp/include/PSPVideo.h:188-215 — studied, not copied).  All routines are
-vectorized numpy; the same bit math is expressible in a Pallas kernel if
-on-device unpacking ever becomes the bottleneck (today HBM ingest is
-host-side).
+vectorized numpy; ops/unpack.py holds the same bit math for on-device
+unpacking of packed chunks.
 """
 
 from __future__ import annotations

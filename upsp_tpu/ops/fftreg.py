@@ -1,6 +1,6 @@
 """FFT phase-correlation translation estimate (ECC initialization).
 
-A TPU-native accelerator for the reference's image registration
+A device-side accelerator for the reference's image registration
 (cpp/lib/registration.cpp:30-66 identity-starts every cv::findTransformECC
 solve — studied, not copied): one rfft2 + cross-power spectrum + irfft2 +
 argmax per frame estimates the dominant translation directly, and ECC then
@@ -13,13 +13,11 @@ shard boundaries — the property the reference gets from identity starts,
 without paying identity-start iteration counts.  It also extends capture
 range to +-H/(4*decimate) pixels (far beyond ECC's ~2-3 px basin at 1 MP).
 
-TPU notes: the estimate runs on a ``decimate``x average-pooled image (an ECC
-init needs ~1 px accuracy, not 0.05 px), which cuts the FFT cost ~decimate^2
-— at 1 MP and decimate=4 the correlation costs ~0.1 ms vs ~1.4 ms for the
-rest of phase 1.  The template spectrum must be computed INSIDE the traced
-program (prepare_template): this backend cannot embed eager complex64 arrays
-as jit constants (host transfer of complex is unimplemented), and XLA CSEs
-the per-chunk recomputation away.
+Cost notes: the estimate runs on a ``decimate``x average-pooled image (an
+ECC init needs ~1 px accuracy, not 0.05 px), which cuts the FFT cost
+~decimate^2.  The template spectrum is computed INSIDE the traced program
+(prepare_template) rather than embedded as a complex64 jit constant; XLA
+hoists the per-chunk recomputation out of the frame loop.
 
 The peak is refined to sub-pixel by a 3-point parabolic fit per axis
 (standard phase-correlation practice).
@@ -54,13 +52,10 @@ def _pool_matrix(n: int, k: int) -> jax.Array:
 def decimate_image(img: jax.Array, k: int) -> jax.Array:
     """k x k average pool (crops to a multiple of k first).
 
-    Lowered as two separable pooling MATMULS (P_h @ img @ P_w^T): the
-    reshape-mean form lowers to a multi-axis reduce that the TPU backend
-    runs at ~50 GB/s (profiled at 0.09 ms/frame at 1 MP — as expensive as
-    the whole FFT correlation it feeds); the MXU form is ~0.5 GFLOP at 1 MP
-    and effectively free.  bf16 matmul quantization (~8 counts on a 2000-
-    count pooled pixel) is irrelevant here — the pooled image only seeds a
-    ~1 px-accuracy phase-correlation init.
+    Lowered as two separable pooling MATMULS (P_h @ img @ P_w^T, ~0.5
+    GFLOP at 1 MP).  Reduced-precision matmul passes (TF32 or bf16, a few
+    counts on a 2000-count pooled pixel) are irrelevant here — the pooled
+    image only seeds a ~1 px-accuracy phase-correlation init.
     """
     if k == 1:
         return img.astype(jnp.float32) if img.dtype == jnp.bfloat16 else img
@@ -84,9 +79,8 @@ def _pow2_floor(n: int) -> int:
 def pow2_center_crop(img: jax.Array) -> jax.Array:
     """Center-crop both dims to the largest power of two.
 
-    XLA's TPU FFT lowers non-power-of-two sizes to serial loop
-    implementations (profiled: 12 ~1.2 ms `while` ops per 8-frame batch for
-    300x450 spectra vs essentially free at 256x256).  Translation is
+    Power-of-two sizes are the fast path of FFT libraries; arbitrary sizes
+    fall back to slower mixed-radix or Bluestein plans.  Translation is
     preserved under a common centered crop of template and frame, and the
     capture range (crop/2 x decimate) stays in the hundreds of pixels.
     """

@@ -101,8 +101,8 @@ def gaussian_blur_matrix_1d(n: int, ksize: int, sigma: float = 0.0) -> np.ndarra
     Row i holds the kernel taps at reflected source indices, so applying
     ``B @ x`` along an axis equals :func:`gaussian_blur` along that axis
     exactly.  Used to pre-compose the ECC blur into the separable-warp tent
-    matrices (ops/warp.py): the blur then costs one extra small MXU matmul
-    per warp instead of two full HBM passes per frame.
+    matrices (ops/warp.py): the blur then costs one extra small matmul
+    per warp instead of two full image passes per frame.
     """
     k = gaussian_kernel_1d(ksize, sigma)
     r = ksize // 2

@@ -11,7 +11,7 @@ aggregated per panel (any node->panel assignment: components, zones, or
 user-defined hexahedral panel decompositions).  Because the map from nodal Cp
 to (fx, fy, fz, mx, my, mz) is linear, :func:`integration_matrices` returns
 the dense (panels, 6, nodes) operator so per-frame force histories are one
-matmul over the frame axis — MXU work batched with everything else.
+matmul over the frame axis — batched with everything else.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ one target at a time (python/upsp/target_operations/
 gaussian_localization_methods.py:17-436 — studied, not copied).  Here every
 target fits simultaneously: fixed-size crops are gathered into a (T, K, K)
 batch and a fixed-iteration LM loop runs under ``vmap`` — Jacobians via
-``jacfwd``, all T solves in lockstep on the VPU/MXU.
+``jacfwd``, all T solves in lockstep on the device.
 
 Bounds are enforced through the reference's own "nobounds" reparameterization
 (log amplitude / log sigma / p = exp(lnp) + 1).

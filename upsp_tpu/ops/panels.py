@@ -13,10 +13,10 @@ studied, not copied), vectorized:
 
 Every panel is 6 half-spaces; assignment of model nodes to panels is one
 blocked ``(Q, 3) @ (P*6, 3)^T`` comparison instead of the reference's
-per-node Octree walk — the data-parallel shape TPU/host SIMD wants.  The
+per-node Octree walk — the data-parallel shape device/host SIMD wants.  The
 (P, 6, N) force/moment operator then comes from
 :func:`upsp_tpu.ops.integration.integration_matrices` and applies per frame
-as one matmul (MXU) — the reference's Eigen SpMV per frame, batched.
+as one matmul — the reference's Eigen SpMV per frame, batched.
 """
 
 from __future__ import annotations

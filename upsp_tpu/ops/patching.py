@@ -8,7 +8,7 @@ precomputes, per cluster, the composed operator
     M = A_internal @ pinv(A_boundary)        (I x B)
 
 and the per-frame patch application becomes: gather boundary pixels -> one
-batched (clusters, I, B) matmul on the MXU -> scatter interiors.  Bit-identical
+batched (clusters, I, B) matmul -> scatter interiors.  Bit-identical
 math to fit-then-eval, at a fraction of the cost, and fully fused into the
 per-frame XLA program.
 
@@ -278,170 +278,16 @@ def build_patch_operator(
     )
 
 
-class PatchNodeCorrection(NamedTuple):
-    """Patch+filter effect precomposed to the grid-NODE level.
+def fill_gain(op: Optional[PatchOperator]) -> float:
+    """Largest absolute row sum of the operator: the most a fill value can
+    move per count of error in the boundary pixels (0 without clusters).
 
-    The sequential tail (warp -> ``apply_patches`` full-image scatter ->
-    full-image filter) only changes node values whose gather pixel lies
-    within ``filter radius`` of a patch interior.  Since the polynomial fill
-    is LINEAR in warped pixel values and the filter is linear, the
-    filtered-patched value at each affected pixel is one precomposed linear
-    functional of warped values at a small static source-pixel set — so the
-    fused warp+filter kernel (ops/pallas_ecc.py) can skip patching entirely
-    and the per-frame patch cost becomes: sample |S| warped pixels ->
-    cluster-batched matmul -> overlay a handful of nodes.  (The reference
-    applies patches as a full-image pass every frame, patches.ipp role.)
-    """
-
-    src_flat: jax.Array  # (S,) int32 flat source pixel indices, aligned frame
-    C: jax.Array  # (K, A_max, S_max) float32 affected-value operator
-    src_slot: jax.Array  # (K, S_max) int32 into the (S,) sampled vector
-    pix_idx: jax.Array  # (K, A_max) int32 flat affected pixel (H*W = pad)
-    n_clusters: int
-
-
-def build_patch_node_correction(
-    op: Optional[PatchOperator],
-    image_hw: Tuple[int, int],
-    filter_type: str,
-    ksize: int,
-) -> Optional[PatchNodeCorrection]:
-    """Precompose filter(patch(warped)) at every affected pixel.
-
-    Derived entirely from the composed :class:`PatchOperator`: valid interior
-    slots are ``internal_idx != H*W``; valid boundary slots are nonzero
-    ``M`` columns.  Returns None (caller falls back to the sequential tail)
-    when the filter is unsupported or two clusters' windows interact.
+    About 3.4 for a cubic filled from a whole boundary ring; a ring that
+    lost most of its pixels gives hundreds or thousands.
     """
     if op is None:
-        return None
-    if filter_type == "gaussian":
-        from upsp_tpu.ops.image import gaussian_kernel_1d
-
-        if ksize > 7:
-            return None
-        taps = np.asarray(gaussian_kernel_1d(ksize), np.float64)
-    elif filter_type == "box":
-        if ksize > 7:
-            return None
-        taps = np.full(ksize, 1.0 / ksize)
-    elif filter_type == "none":
-        taps = np.ones(1)
-    else:
-        return None
-    r = len(taps) // 2
-    H, W = image_hw
-    M = np.asarray(op.M, np.float64)
-    b_idx = np.asarray(op.boundary_idx)
-    i_idx = np.asarray(op.internal_idx)
-    K = op.n_clusters
-    col_valid = (np.abs(M) > 0).any(axis=1)  # (K, B_max)
-
-    int_map = {}  # flat pixel -> (cluster, M row)
-    for k in range(K):
-        for i, q in enumerate(i_idx[k]):
-            if q != H * W:
-                int_map[int(q)] = (k, i)
-
-    def refl(v, n):  # reflect-101
-        if v < 0:
-            return -v
-        if v >= n:
-            return 2 * (n - 1) - v
-        return v
-
-    src_of = {}  # flat pixel -> global source slot
-    src_list = []
-
-    def slot(q):
-        s = src_of.get(q)
-        if s is None:
-            s = src_of[q] = len(src_list)
-            src_list.append(q)
-        return s
-
-    rows_per_cluster = []  # [(pix_flat, {global_slot: coeff})]
-    for k in range(K):
-        interiors = [int(q) for q in i_idx[k] if q != H * W]
-        aff = set()
-        for q in interiors:
-            y, x = q // W, q % W
-            for dy in range(-r, r + 1):
-                for dx in range(-r, r + 1):
-                    yy, xx = y + dy, x + dx
-                    if 0 <= yy < H and 0 <= xx < W:
-                        aff.add(yy * W + xx)
-        bcols = np.nonzero(col_valid[k])[0]
-        bflat = [int(b_idx[k, c]) for c in bcols]
-        rows = []
-        for p in sorted(aff):
-            py, px = p // W, p % W
-            row: dict = {}
-            for dy in range(-r, r + 1):
-                wy = taps[dy + r]
-                qy = refl(py + dy, H)
-                for dx in range(-r, r + 1):
-                    wgt = wy * taps[dx + r]
-                    qx = refl(px + dx, W)
-                    q = qy * W + qx
-                    hit = int_map.get(q)
-                    if hit is None:
-                        row[slot(q)] = row.get(slot(q), 0.0) + wgt
-                    else:
-                        kq, iq = hit
-                        if kq != k:
-                            return None  # interacting clusters: fall back
-                        for c, bf in zip(bcols, bflat):
-                            coef = M[k, iq, c]
-                            if coef != 0.0:
-                                s = slot(bf)
-                                row[s] = row.get(s, 0.0) + wgt * coef
-            rows.append((p, row))
-        rows_per_cluster.append(rows)
-
-    A_max = max((len(rs) for rs in rows_per_cluster), default=0)
-    if A_max == 0:
-        return None
-    # per-cluster local source slots -> padded (K, S_max) global-slot table
-    local_slots = []
-    for rs in rows_per_cluster:
-        used = sorted({s for _, row in rs for s in row})
-        local_slots.append(used)
-    S_max = max(len(u) for u in local_slots)
-    C = np.zeros((K, A_max, S_max), np.float32)
-    src_slot = np.zeros((K, S_max), np.int64)
-    pix = np.full((K, A_max), H * W, np.int64)
-    for k, rs in enumerate(rows_per_cluster):
-        pos = {s: j for j, s in enumerate(local_slots[k])}
-        src_slot[k, : len(local_slots[k])] = local_slots[k]
-        for a, (p, row) in enumerate(rs):
-            pix[k, a] = p
-            for s, coef in row.items():
-                C[k, a, pos[s]] = coef
-    return PatchNodeCorrection(
-        src_flat=jnp.asarray(np.asarray(src_list), jnp.int32),
-        C=jnp.asarray(C),
-        src_slot=jnp.asarray(src_slot, jnp.int32),
-        pix_idx=jnp.asarray(pix, jnp.int32),
-        n_clusters=K,
-    )
-
-
-def patch_correction_values(
-    warped: jax.Array, corr: PatchNodeCorrection
-) -> jax.Array:
-    """(K, A_max) filtered-patched values from the WARPED (pre-filter) image.
-
-    One flat gather at STATIC source indices (the same boundary-pixel reads
-    ``apply_patches`` performs) + the precomposed cluster matmul.  The fused
-    tail kernel emits the pre-filter warped image as its second output, so
-    these are exactly the sequential path's sample values.  Dynamic-position
-    bilinear sampling of the unwarped image was measured at ~109 us/frame of
-    scalar gathers at 1 MP; this form rides the fast constant-index gather
-    path (<2 us).
-    """
-    srcv = warped.reshape(-1)[corr.src_flat].astype(jnp.float32)
-    return jnp.einsum("kas,ks->ka", corr.C, srcv[corr.src_slot])
+        return 0.0
+    return float(np.abs(np.asarray(op.M, np.float64)).sum(axis=2).max())
 
 
 def apply_patches(frame: jax.Array, op: Optional[PatchOperator]) -> jax.Array:
@@ -450,6 +296,14 @@ def apply_patches(frame: jax.Array, op: Optional[PatchOperator]) -> jax.Array:
     bfloat16 frames stay bfloat16 (the scatter rewrites the full image, so
     the dtype sets the pass cost); the cluster matmul itself always runs on
     gathered values promoted through the f32 operator.
+
+    The matmul runs at "highest" precision whatever the default: a cluster
+    whose boundary ring lost most of its pixels to the threshold (or to the
+    frame edge) extrapolates a cubic from a few pixels, and its operator
+    rows can sum to thousands in absolute value.  A GPU's TF32 passes
+    round M and z to 10-bit mantissas, and such a row turns that rounding
+    into hundreds of counts of fill error.  The matmul is a few MFLOP per
+    frame, so full f32 costs nothing measurable.
     """
     dtype = frame.dtype if frame.dtype == jnp.bfloat16 else jnp.float32
     if op is None:
@@ -457,7 +311,9 @@ def apply_patches(frame: jax.Array, op: Optional[PatchOperator]) -> jax.Array:
     flat = frame.reshape(-1).astype(dtype)
     z = flat[op.boundary_idx]  # (K, B_max); padded slots gather pixel 0 but
     # their M columns are zero, so they contribute nothing
-    fill = jnp.einsum("kib,kb->ki", op.M, z)  # MXU batched matmul
+    fill = jnp.einsum(  # batched matmul
+        "kib,kb->ki", op.M, z, precision=jax.lax.Precision.HIGHEST
+    )
     out = flat.at[op.internal_idx.reshape(-1)].set(
         fill.reshape(-1).astype(dtype), mode="drop"
     )

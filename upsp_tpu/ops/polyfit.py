@@ -1,4 +1,4 @@
-"""Time-series polynomial detrend — the Phase-2 compute core, MXU-shaped.
+"""Time-series polynomial detrend — the Phase-2 compute core, as matmuls.
 
 The reference fits a degree-6 polynomial over normalized frame index to each
 node's Iref/I series with a per-node QR solve (cpp/lib/filtering.ipp:12-77 —
@@ -8,7 +8,7 @@ precompute the projector once:
     basis   A = [(f/F)^c]            (F, C)
     fitter  P = A @ pinv(A)          (F, F)  — or two skinny matmuls
 
-and per node-block the detrend is ``fit = Y @ P.T`` — pure MXU work batched
+and per node-block the detrend is ``fit = Y @ P.T`` — pure matmul work batched
 over the whole (nodes_shard, frames) block instead of a QR per node.
 
 ``pinv(A)`` is computed once in float64 on the host; the device matmuls run in

@@ -1,4 +1,4 @@
-"""Pixel -> grid-node projection, TPU style.
+"""Pixel -> grid-node projection as static-index device gathers.
 
 Phase 0 of the reference builds an Eigen sparse matrix with exactly one entry
 per visible node (nearest pixel, weight 1), later rescaled by multi-camera
@@ -131,15 +131,15 @@ def build_node_projection_host(
     """Host/native-raycast version of build_node_projection (same semantics).
 
     Phase 0's visibility rays traverse the BVH on the host through the
-    multithreaded C++ walker (the vmapped while_loop traversal compiles
-    pathologically on the TPU backend); everything else is vectorized numpy.
+    multithreaded C++ walker (a vmapped while_loop traversal runs every
+    lane to the longest ray's depth); everything else is vectorized numpy.
     """
     from upsp_tpu import native
 
     n = vertices.shape[0]
     center = np.array(cam_center(params), np.float64)
-    # f64 projection when x64 is live (tests/host); on TPU (no x64) request
-    # f32 explicitly rather than triggering the backend truncation warning
+    # f64 projection when x64 is live (tests/host); otherwise request f32
+    # explicitly rather than triggering the x64 truncation warning
     pdtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
     pix = np.array(project_points(params, jnp.asarray(vertices, pdtype)))
     in_frame = (

@@ -1,9 +1,9 @@
 """Batched Welch PSD over grid nodes — surface spectra at campaign scale.
 
 The reference computes PSDs only for a handful of kulite channels via
-scipy.signal.welch (kulite_utilities.py:451-490).  The TPU framework makes the
+scipy.signal.welch (kulite_utilities.py:451-490).  This framework makes the
 *whole surface* spectral: a (nodes_shard, frames) block maps to
-(nodes_shard, freqs) with one rFFT batch per Welch segment — MXU/VPU work that
+(nodes_shard, freqs) with one rFFT batch per Welch segment — device work that
 shards over the node axis like the rest of phase 2.
 
 Matches scipy.signal.welch(window='hann', detrend='linear'|'constant',

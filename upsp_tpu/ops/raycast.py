@@ -1,4 +1,4 @@
-"""Ray-triangle intersection against the flattened BVH — pure JAX, TPU-friendly.
+"""Ray-triangle intersection against the flattened BVH — pure JAX, vmappable.
 
 The reference traverses a pointer BVH per ray on the CPU
 (cpp/raycast/pspRT.cpp — studied, not copied).  Here rays are a *batch*: a
@@ -29,8 +29,8 @@ class BVHArrays(NamedTuple):
     Leaf triangles are stored *per node*, padded to the max leaf size, so the
     traversal loop only ever gathers with the scalar node index — the same
     access pattern as the bbox arrays.  (A vector-indexed gather of the global
-    triangle table inside the vmapped while_loop lowered to a rays x tris x 3
-    intermediate on the TPU backend.)  Memory cost: ~2x the triangle soup.
+    triangle table inside the vmapped while_loop can lower to a
+    rays x tris x 3 intermediate.)  Memory cost: ~2x the triangle soup.
     """
 
     bbox_min: jax.Array  # (M, 3)

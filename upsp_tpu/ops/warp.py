@@ -1,9 +1,7 @@
-"""MXU-native affine image warping: separable matmul resampling.
+"""Affine image warping by separable matmul resampling.
 
-TPU gathers are slow (a 1 MP bilinear gather warp measures ~45 ms on v5e);
-matmuls are what the hardware is built for.  A bilinear 1-D resample is a
-sparse tent-function matrix, and a *separable* affine (scale + translation) is
-exactly two such matmuls:
+A bilinear 1-D resample is a sparse tent-function matrix, and a *separable*
+affine (scale + translation) is exactly two such matmuls:
 
     out = R @ img @ C.T          R (H,H), C (W,W), 2 nonzeros per row
 
@@ -18,7 +16,8 @@ O(d^3) error in the shear displacement d (sub-pixel here).
 
 This replaces the per-iteration gather warps inside ECC registration
 (cv::findTransformECC's warpAffine calls — registration.cpp:63-80) and the
-final frame warp.
+final frame warp.  The gather-bilinear warp (ops/registration.warp_affine) is
+the plain reference it is tested against.
 """
 
 from __future__ import annotations
@@ -51,7 +50,7 @@ def _resample_rows_banded(img: jax.Array, pos: jax.Array, band: int) -> jax.Arra
     The dense tent matrix has 2 nonzeros per row; when |pos[i] - i| <= band-1
     (near-identity warps — uPSP vibration is a few px, and the reference's
     own identity-start ECC assumes motion within the blur radius), only
-    diagonals i-band..i+band contribute, so the (H,H)@(H,W) MXU matmul
+    diagonals i-band..i+band contribute, so the (H,H)@(H,W) matmul
     (2.6 GFLOP at 2 MP) collapses to 2*band+1 fused weighted adds
     (bandwidth-bound, one pass).  Zero padding reproduces the dense matrix's
     BORDER_CONSTANT semantics exactly.
@@ -90,25 +89,22 @@ def warp_affine_mxu(
 
     ``order``: 0 = separable part only (ignore shear), 1/2 = Taylor order for
     the shear residual.  Matches gather-bilinear to O(shear_disp^(order+1)).
-    ``band``: use the banded elementwise resample instead of the dense MXU
+    ``band``: use the banded elementwise resample instead of the dense
     matmuls — exact (no matmul rounding) while every sample displacement
-    stays within band-1 px.  Measured SLOWER than the MXU path on this
-    backend despite the 250x FLOP cut (the MXU wins even at 0.1% density);
-    serves as the precision oracle and a fallback for matmul-free builds.
+    stays within band-1 px; serves as the precision oracle for the dense
+    path.
     ``pre_blur``: Gaussian ksize composed INTO the tent matrices, computing
     ``warp(gaussian_blur(img, pre_blur))`` without ever materializing the
     blurred image: warp∘blur = (R @ By) @ img @ (C @ Bx)^T by associativity
-    (both are linear), trading two full HBM passes per frame for two small
-    MXU matmuls per warp (~0.02 ms at 1 MP).  Exact for the separable part;
+    (both are linear), trading two full image passes per frame for two
+    small matmuls per warp.  Exact for the separable part;
     the shear-Taylor derivatives are taken from the blurred+warped image,
     matching blur-then-warp to the same Taylor order.  Dense path only.
     """
     H, W = img.shape
-    # bf16 images stay bf16 (the compute_dtype=bfloat16 pipeline: avoids the
-    # unfusable f32<->bf16 retiling copies around each matmul — bf16 uses
-    # (16,128) tiles vs f32's (8,128), so every dtype boundary is a real
-    # layout pass); positions/tent weights stay f32 for index accuracy, and
-    # the MXU computes bf16 x f32 -> f32 natively.
+    # bf16 images stay bf16 (the compute_dtype=bfloat16 pipeline: no dtype
+    # conversion pass around each matmul); positions/tent weights are
+    # computed in f32 for index accuracy and cast to the image dtype.
     dtype = img.dtype if img.dtype == jnp.bfloat16 else jnp.float32
     img = img.astype(dtype)
     if pre_blur is not None and band is not None:
@@ -142,15 +138,21 @@ def warp_affine_mxu(
 
             R = R @ jnp.asarray(gaussian_blur_matrix_1d(H, pre_blur))
             C = C @ jnp.asarray(gaussian_blur_matrix_1d(W, pre_blur))
-        # Precision note (measured against the exact banded path at 2 MP):
-        # the TPU's default bf16 matmul rounds both the tent weights and the
-        # image to 8 mantissa bits, leaving ~|I| * 2^-8 ~ 10-24 counts of
-        # quantization per warp.  Real 12-bit camera data carries ~sqrt(I)
-        # ~ 50 counts of shot noise at these levels, so this adds <1% to the
-        # physical noise floor and averages out over the 10k-50k-frame
-        # statistics; Precision.HIGHEST removes it at +38% phase-1 cost and
-        # band=8 removes it exactly (slower still) — both available when a
-        # quantization-free resample matters more than throughput.
+        # Precision: these f32 matmuls run at JAX's default matmul
+        # precision, which on an NVIDIA H100 lets cuBLAS use TF32 passes
+        # (10-bit operand mantissa, f32 accumulation): a 1024^3 f32 matmul
+        # lands 5.3e-5 (relative to its largest entry) from float64, against
+        # 2.0e-6 at "highest".  On the four worst-registered frames of
+        # chip_smoke.py's deck, phase-1 intensities differ from the
+        # CPU-backend values by 3.6e-4 of full scale at the 99th percentile
+        # and 6.5e-4 at most (an H100 80GB HBM3 at 400 W), under the
+        # ~sqrt(I) ~ 50-count shot noise of real 12-bit data.  A patch operator multiplies the rounding of its
+        # boundary ring by its fill gain (ops/patching.fill_gain: ~3.4 for
+        # a whole ring, thousands for a ring the threshold emptied, which
+        # phase 0 warns of).  The production default keeps TF32;
+        # ``jax.default_matmul_precision("highest")`` around the call removes
+        # it (full f32 passes, 1.75x the warp time there), and band=8 removes
+        # it exactly.
         sep = R @ img @ C.T
 
     if order == 0:
@@ -222,9 +224,8 @@ def warp_validity_mask(
 def downsample2(img: jax.Array) -> jax.Array:
     """2x box downsample (pyramid level construction).
 
-    Reshape-mean lowering: the strided-slice formulation
-    (x[0::2,0::2] + ...) composes pathologically with downstream matmuls on
-    this backend (measured 46 ms vs 3 ms per fused ECC coarse stage at 2 MP).
+    Reshape-mean formulation (one reduction over a free reshape) rather
+    than four strided slices.
     """
     H, W = img.shape
     h2, w2 = H // 2, W // 2
@@ -243,15 +244,12 @@ def integer_shift(img: jax.Array, t_int: jax.Array,
     BORDER_CONSTANT zeros — the warp convention of :func:`warp_affine_mxu`
     for a pure integer translation.
 
-    Implemented as pad + ``dynamic_slice`` (2.3x faster than the previous
-    dynamic ``jnp.roll``, whose lowering is a concatenate+gather pair —
-    83.8 vs 196.5 us per 2.16 MP image, measured round 5).  Shifts beyond
-    ``max_shift`` clamp; callers must clamp their own shift record the
-    same way (phase1 does) so the composed warp stays consistent — an
-    over-clamped frame then carries a large ECC residual, trips the
-    banded-warp displacement certificate, and reprocesses on the dense
-    path.  Production shifts are ~1 px (prior sigma 12 px), so the clamp
-    is a never-taken guard rail.
+    Implemented as pad + ``dynamic_slice`` (a dynamic ``jnp.roll`` lowers to
+    a concatenate+gather pair).  Shifts beyond ``max_shift`` clamp; callers
+    must clamp their own shift record the same way (phase1 does) so the
+    composed warp stays consistent — an over-clamped frame then carries the
+    excess in its ECC residual.  Production shifts are ~1 px (prior sigma
+    12 px), so the clamp is a never-taken guard rail.
     """
     H, W = img.shape
     M = max_shift
@@ -264,8 +262,8 @@ def integer_shift(img: jax.Array, t_int: jax.Array,
 def scale_warp(warp: jax.Array, factor: float) -> jax.Array:
     """Rescale a warp between pyramid levels (translation scales, A doesn't).
 
-    Elementwise (no .at scatter): vmapped scatters are pathologically slow
-    on this backend, and this runs inside the batched ECC solve.
+    Elementwise (no .at scatter): this runs inside the batched ECC solve,
+    where a vmapped scatter would be a separate op per batch.
     """
     scale = jnp.array([[1.0, 1.0, factor], [1.0, 1.0, factor]], warp.dtype)
     return warp * scale

@@ -1,7 +1,7 @@
 """Multi-host launch: jax.distributed init + per-host work slicing.
 
 The reference runs under PBS with `mpiexec psp_process` on 20-50 nodes
-(docs/md/upsp-swdd.md:307-312); here a pod slice initializes through
+(docs/md/upsp-swdd.md:307-312); here a multi-host job initializes through
 ``jax.distributed`` (coordinator address + process id from env or arguments)
 and each host reads only its own video-frame slice — the same contiguous
 apportioning as the reference's per-rank reads (psp_process.cpp:867-908),
@@ -27,7 +27,7 @@ def initialize_distributed(
     """Initialize multi-host JAX; returns (process_id, process_count).
 
     Arguments default to JAX's standard env vars; ``require=True`` (the
-    ``upsp-process --distributed`` path) falls back to JAX's cloud/pod
+    ``upsp-process --distributed`` path) falls back to JAX's cluster
     auto-detection when nothing is configured explicitly.  On a single host
     with no configuration this is a no-op returning (0, 1).
     """
@@ -44,7 +44,7 @@ def initialize_distributed(
             else int(os.environ.get("JAX_PROCESS_ID", "0")),
         )
     elif require:
-        # TPU pod / cloud environment auto-detection
+        # cluster auto-detection (SLURM, Open MPI, cloud environments)
         jax.distributed.initialize()
     try:
         return jax.process_index(), jax.process_count()

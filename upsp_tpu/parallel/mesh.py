@@ -7,7 +7,7 @@ one global transpose, reductions, and broadcasts (SURVEY.md section 2.3).  Here:
 - phase 2 shards the *node* axis,
 - the MPI Isend/Recv global transpose (psp_process.cpp:707-771) is a single
   sharding-constraint change on the transposed array — XLA emits the
-  all-to-all over ICI,
+  all-to-all (NVLink within a host, which joins every GPU to every other),
 - MPI_Reduce(SUM) of avg/rms partials becomes jnp.mean/psum under the same
   sharding,
 - phase-0 "replicate everywhere" is just replicated sharding.
@@ -38,7 +38,7 @@ def make_mesh(
     1-D by default (axis carries the block decomposition).  With ``n_hosts``
     the mesh is 2-D ``(hosts, axis)`` — hosts major so each host's devices
     hold a contiguous frame/node range and the phase-1<->2 all-to-all rides
-    ICI within a host before DCN across hosts.
+    the in-host NVLink fabric before the network across hosts.
     """
     devices = list(devices) if devices is not None else jax.devices()
     if n_hosts is not None and n_hosts > 1:
@@ -92,7 +92,8 @@ def global_transpose(mesh: Mesh, intensity: jax.Array) -> jax.Array:
 
     This is the reference's global_transpose / upsp_matrix_transpose collective
     (psp_process.cpp:707-771, cpp/exec/upsp_matrix_transpose.cpp) expressed as
-    one resharding constraint; XLA lowers it to an all-to-all over ICI.
+    one resharding constraint; XLA lowers it to one all-to-all collective
+    (NCCL over NVLink on a multi-GPU host).
     """
     t = intensity.T  # (N, F)
     return jax.lax.with_sharding_constraint(t, node_sharding(mesh))

@@ -62,7 +62,7 @@ def make_sharded_pipeline(
         avg = jnp.nanmean(intensity, axis=0)
         rms = jnp.sqrt(jnp.nanmean(intensity * intensity, axis=0))
 
-        # the global transpose: frames-major -> node-major over ICI
+        # the global transpose: frames-major -> node-major (one all-to-all)
         it = jax.lax.with_sharding_constraint(intensity.T, n_sh)
 
         out2 = phase2_convert(it, avg, coverage, steady, model_temp, const, det)

@@ -3,7 +3,7 @@
 A plain dataclass carries what cpp/include/upsp_inputs.h:41-159 parses from the
 ``@general/@vars/@all/@camera/@options/@output`` deck.  :func:`read_input_deck`
 parses that exact format ($var substitution included) so reference decks work
-unchanged; programmatic construction is the primary TPU-native interface.
+unchanged; programmatic construction is the primary library interface.
 """
 
 from __future__ import annotations

@@ -155,7 +155,7 @@ def write_phase0_diagnostics(state, out_dir: str) -> None:
 
 def write_registration_meta(
     out_dir: str, conv_semantics: str, ecc_iters=None,
-    max_iters: int = 50, epsilon: float = 1e-3,
+    max_iters: int = 50, epsilon: float = 1e-3, device_peak_bytes=None,
 ) -> None:
     """Record what telemetry column 1 MEANS next to the flat file.
 
@@ -164,25 +164,25 @@ def write_registration_meta(
     step — the convergence certificate there, since the step count is a
     compile-time constant).  The sidecar makes the flat-file contract
     self-describing so downstream analysis never guesses the mode.
+    ``device_peak_bytes``: peak bytes in use on each device by the end of
+    phase 1 (one entry per device of the run), for sizing chunks and for
+    checking that a sharded run spreads its data.
     """
     import json
 
-    from upsp_tpu.ops.pallas_ecc import DEFAULT_BAND
-
     meta = {
+        # column 4 is always 0: it keeps the flat file's (F, C, 5) layout
+        # that existing readers of the format expect
         "columns": ["rho", conv_semantics, "warp_tx", "warp_ty",
-                    "disp_bound"],
+                    "zero"],
         "conv_semantics": conv_semantics,
         "epsilon": epsilon,
         "max_iters": max_iters,
-        # disp_bound: worst-case banded-kernel sample displacement of the
-        # residual warp (0 on dense paths).  Frames whose bound exceeded
-        # ``band`` were re-run on the dense path by the driver, so recorded
-        # violations are informational, not silent data loss.
-        "band": int(DEFAULT_BAND),
     }
     if ecc_iters is not None:
         meta["ecc_unroll_iters"] = int(ecc_iters)
+    if device_peak_bytes is not None:
+        meta["device_peak_bytes_in_use"] = [int(b) for b in device_peak_bytes]
     with open(os.path.join(out_dir, "registration.json"), "w") as f:
         json.dump(meta, f, indent=1)
 
@@ -202,10 +202,11 @@ def read_registration_meta(path: str) -> dict:
 def read_registration_telemetry(path: str, n_cameras: int) -> np.ndarray:
     """Load the ``registration`` flat file written by run_datapoint
     (registration_telemetry=True) back into (F, C, K)
-    [rho, conv, warp_tx, warp_ty, disp_bound].  Column 1 (``conv``) is the
+    [rho, conv, warp_tx, warp_ty, 0].  Column 1 (``conv``) is the
     ECC iteration count in while-loop modes and the final |drho| in
     fixed-iteration (fft) mode; K comes from the sidecar's ``columns`` list
-    (4 for pre-certificate files) — :func:`read_registration_meta`."""
+    (4 for files written before the sidecar listed columns) —
+    :func:`read_registration_meta`."""
     meta = read_registration_meta(path)
     k = len(meta.get("columns", [])) or 4
     raw = np.fromfile(path, "<f4")
@@ -279,20 +280,6 @@ def analyze_registration_telemetry(
                 # GN converges quadratically inside the basin: one more
                 # unrolled step when >2% of frames end above epsilon
                 recommend_extra_unroll_step=bool(unconverged > 0.02),
-            )
-        if tele.shape[2] >= 5:
-            # column 4: banded-warp displacement certificate.  Violations
-            # were already re-run on the dense path by the driver; surface
-            # them so the operator sees how close the sequence runs to the
-            # band (persistently high bounds argue for a bigger band or
-            # identity-free warm starts).
-            from upsp_tpu.ops.pallas_ecc import DEFAULT_BAND
-
-            bound = tele[:, c, 4]
-            rec.update(
-                disp_bound_max=float(bound.max()),
-                disp_bound_p99=float(np.percentile(bound, 99)),
-                band_violations=int((bound > DEFAULT_BAND).sum()),
             )
         cameras.append(rec)
     return {"n_frames": F, "cameras": cameras}

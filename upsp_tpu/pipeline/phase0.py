@@ -30,6 +30,7 @@ from upsp_tpu.ops.patching import (
     PatchOperator,
     build_patch_clusters,
     build_patch_operator,
+    fill_gain,
     threshold_bounds,
 )
 from upsp_tpu.ops.projection import (
@@ -41,6 +42,10 @@ from upsp_tpu.ops.projection import (
 )
 from upsp_tpu.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
 from upsp_tpu.pipeline.config import ProcessingConfig
+
+# patch-operator fill gain (ops/patching.fill_gain) above which phase 0
+# warns: the fill then magnifies camera noise and rounding tenfold or more
+FILL_GAIN_WARN = 10.0
 
 
 @dataclasses.dataclass
@@ -70,6 +75,28 @@ class Phase0State:
     @property
     def n_cameras(self) -> int:
         return len(self.cam_params)
+
+    def to_device(self, device) -> "Phase0State":
+        """Copy whose phase-1 arrays live on ``device`` (e.g. the CPU
+        backend, to run the same program there as a reference).  The
+        device BVH is dropped; phase 1 does not use it."""
+
+        def put(tree):
+            return jax.tree.map(
+                lambda a: jax.device_put(a, device)
+                if isinstance(a, jax.Array) else a,
+                tree,
+            )
+
+        return dataclasses.replace(
+            self,
+            projections=[put(p) for p in self.projections],
+            skipped=put(self.skipped),
+            patch_ops=[put(op) for op in self.patch_ops],
+            ref_frames=put(self.ref_frames),
+            superseded_by=put(self.superseded_by),
+            bvh_dev=None,
+        )
 
 
 def visible_targets(
@@ -230,7 +257,17 @@ def build_patcher_for_camera(
     )
     thresh = patch_threshold_from_frame(first_frame, bit_depth)
     clusters = threshold_bounds(clusters, first_frame, thresh, offset=2)
-    return build_patch_operator(clusters, image_hw), diag
+    op = build_patch_operator(clusters, image_hw)
+    gain = fill_gain(op)
+    if gain > FILL_GAIN_WARN:
+        import logging
+
+        logging.getLogger("upsp_tpu").warning(
+            "patching: a cluster's fill amplifies boundary-pixel error "
+            "%.0fx (a whole ring gives ~3); the threshold %d or the frame "
+            "edge left it few boundary pixels", gain, thresh,
+        )
+    return op, diag
 
 
 def run_phase0(
@@ -300,7 +337,7 @@ def run_phase0(
 
         if _native.available():
             # phase-0 visibility rays walk the BVH in native code (the
-            # vmapped while_loop traversal compiles poorly on TPU)
+            # vmapped while_loop traversal is the fallback without it)
             raw_projs.append(
                 build_node_projection_host(
                     params, bvh, model.triangles, model.vertices,

@@ -5,7 +5,7 @@ The reference's per-node OpenMP loop with a QR polyfit per node
 matmuls/elementwise ops over the node-sharded (nodes, frames) block:
 
     ratio  = Iref_avg / I                       (Iref = frame-mean intensity)
-    fit    = ratio @ detrend projector          (degree-6, MXU)
+    fit    = ratio @ detrend projector          (degree-6, one matmul)
     gain   = a + bT + cT^2 + (d + eT + fT^2) * (qbar * Cp_steady + ps)
     dP     = (ratio - fit) * gain               (psi)
     dCp    = dP * 144 / qbar
@@ -237,7 +237,7 @@ def run_phase2_sharded(
         it = it[:, :F]  # drop frame padding before any math
         return phase2_convert(it, avg, cov, st, mt, const, det)
 
-    # measured reshard volume (feeds tools/bench_scaling_model.py): each
+    # reshard volume computed from the shapes: each
     # device holds an (F/D, N) block and keeps only its (F/D, N/D) diagonal
     egress = 4 * (F_pad // n_dev) * N_pad * (n_dev - 1) // n_dev
     log.info(
